@@ -1,14 +1,11 @@
 """Example: end-to-end OFDM TX -> impaired channel -> synchronizer loopback.
 
 Run: JAX_PLATFORMS=cpu python examples/ofdm_loopback_example.py
-(or on TPU by omitting the env var)."""
+(or on the GPU by omitting the env var)."""
 import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
-os.environ["JAX_PLATFORMS"] = "cpu"
-import jax
-jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 import jax.numpy as jnp

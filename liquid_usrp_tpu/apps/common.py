@@ -17,6 +17,7 @@ import numpy as np
 
 from ..ops import fec as fec_mod
 from ..ops import modem as modem_mod
+from ..utils.compile_cache import enable_compile_cache
 
 __all__ = ["parse_args", "print_usage_schemes", "RxStats", "apply_channel",
            "apply_msresamp", "iter_sync_results"]
@@ -68,7 +69,10 @@ def parse_args(argv, optstring: str, long_opts=None):
 
     Unknown/malformed flags exit with a one-line error + a pointer to
     ``-h`` (liquid's getopt apps print usage and exit; a Python
-    traceback is not an acceptable CLI failure mode)."""
+    traceback is not an acceptable CLI failure mode).  Every app parses
+    its flags here first, so this is also where the persistent compile
+    cache is placed (``utils/compile_cache.py``)."""
+    enable_compile_cache()
     try:
         opts, rest = _getopt.getopt(argv, optstring,
                                     long_opts or ["snr=", "cfo=", "delay=",

@@ -112,7 +112,7 @@ def make_flex_sync(params: FlexParams, block_size: int = 16384,
 
 def flex_sync_init(sync: FlexSync) -> FlexSyncState:
     return FlexSyncState(
-        tail=iqfmt.czeros((sync.overlap,)),
+        tail=jnp.zeros((sync.overlap,), jnp.complex64),
         base=jnp.int32(-sync.overlap))
 
 

@@ -17,7 +17,7 @@ Format (from scratch):
   selectable, 0.5 default) -> phase accumulation (pi/2 per symbol) ->
   ``exp(j phi)``.
 
-TPU-first: TX phase is one ``cumsum`` over the filtered impulse train; RX
+Block design: TX phase is one ``cumsum`` over the filtered impulse train; RX
 runs an FFT-domain Laurent matched filter over the whole block, correlates
 the known template segmented-coherently at every offset (one dilated real
 convolution), and decodes candidates under ``vmap`` with the shared codec
@@ -255,7 +255,7 @@ def make_gmsk_sync(params: GmskParams, block_size: int = 16384,
     # at -3 dB).  At 0.38 the composite detects 40/40 at -3 dB and most
     # frames at -4, with measured margins: data-region sidelobes <= 0.34
     # (the diff-coherent m2 term collapses them), pure noise <= 0.15 over
-    # 500k samples (round-4 measurement, ROUND4_NOTES.md)
+    # 500k samples (measured on the host)
     if expansion < 1:
         raise ValueError(f"expansion must be >= 1 (got {expansion})")
     dec_max = max_payload + 4
@@ -278,7 +278,7 @@ def make_gmsk_sync(params: GmskParams, block_size: int = 16384,
 
 def gmsk_sync_init(sync: GmskSync) -> GmskSyncState:
     return GmskSyncState(
-        tail=iqfmt.czeros((sync.overlap,)),
+        tail=jnp.zeros((sync.overlap,), jnp.complex64),
         base=jnp.int32(-sync.overlap))
 
 
@@ -336,9 +336,8 @@ def _front_end(sync: GmskSync, ext: jnp.ndarray):
     convolution (taps at symbol stride k) whose per-segment output rows
     are shifted slices — replacing the ``[n_metric, n_t]`` strided window
     gather, which materialized 128x the stream bytes three times over
-    (the whole-block HBM hot spot; gathers also serialize on TPU where
-    convs ride the MXU).  Equivalent to the gather formulation to f32
-    rounding (~1e-7 metric delta, same candidates).
+    (the whole-block memory-traffic hot spot).  Equivalent to the gather
+    formulation to f32 rounding (~1e-7 metric delta, same candidates).
     """
     from .ofdm_sync import topk_peaks
     p = sync.params

@@ -8,9 +8,9 @@ modulation/FEC, cyclic prefix and taper (/root/reference/lib/ofdmtxrx.cc:
 cp=6, taper=4, QPSK, CRC32, Golay(24,12) (/root/reference/src/
 ofdmflexframe_tx.cc:57-72).
 
-This is a from-scratch frame format engineered for batched TPU generation and
-synchronization (NOT liquid-dsp's wire format — the reference never exposes
-that format off-air, only its capabilities):
+This is a from-scratch frame format engineered for batched device generation
+and synchronization (NOT liquid-dsp's wire format — the reference never
+exposes that format off-air, only its capabilities):
 
 * preamble: 2 short-sync symbols ``S0`` (energy on every 4th subcarrier ->
   period-M/4 time structure for detection + coarse CFO), then 1 long-sync

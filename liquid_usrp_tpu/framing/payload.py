@@ -3,8 +3,8 @@
 Every reference framer (ofdmflexframe, flexframe, gmskframe, frame64) shares
 the same packet shape: FEC+CRC protected header carrying per-packet payload
 properties, then a payload run through CRC -> inner FEC -> outer FEC ->
-modem (SURVEY.md §2.3).  This module holds the TPU-side codec used by all of
-them:
+modem (SURVEY.md §2.3).  This module holds the device-side codec used by
+all of them:
 
 * static header encode/decode (Golay(24,12) + CRC16 + PN scramble),
 * runtime-property payload decode: constellation selected by a traced enum
@@ -331,12 +331,10 @@ def _nearest_sym(x: jnp.ndarray, table: jnp.ndarray):
         trk, tik, b0 = cs
         # unrolled elementwise min/argmin update: a broadcast distance
         # tile d[n, ck] here has TWO reduction consumers (min + argmin),
-        # so XLA materializes it — and a 16-lane minor axis pads to 128
-        # on TPU (8x HBM).  The unrolled running update is one fusion
-        # reading x and the carries once per chunk, no tile at all
-        # (measured: the tile was the planar decode path's largest HBM
-        # term on v5e, docs/tpu_runs/r04b_planar_stage.json).  Ascending
-        # k with strict < keeps jnp.argmin's first-occurrence ties.
+        # so XLA materializes it.  The unrolled running update is one
+        # fusion reading x and the carries once per chunk, no tile at
+        # all.  Ascending k with strict < keeps jnp.argmin's
+        # first-occurrence ties.
         for k in range(ck):
             d = (xr - trk[k]) ** 2 + (xi - tik[k]) ** 2
             upd = d < bm
@@ -360,10 +358,8 @@ def _bits_from_syms(sym: jnp.ndarray, off: jnp.ndarray, bps: jnp.ndarray,
     ``bps``, with the DPSK reference-point offset ``off`` (0/1).
 
     The direct form — ``sym[clip(j // bps + off)]`` — is a traced
-    index-array gather, which lowers catastrophically on TPU under the
-    candidate vmap (measured: 3.0 ms / 1.4 GB of HBM for the 24-row
-    batch vs 0.08 ms for the argmin scan feeding it — the same
-    pathology as _window_gather).  Instead each STATIC bps in the
+    index-array gather under the candidate vmap (the pattern
+    ofdm_sync._window_gather avoids).  Instead each STATIC bps in the
     scheme set gets a gather-free layout (broadcast + shift + reshape;
     ``off`` via one dynamic_slice), and a mask-select picks the row's
     layout — layouts are cheap ``[max_bits]`` u8 streams, so computing
@@ -391,10 +387,8 @@ def _nearest_point(x: jnp.ndarray, table: jnp.ndarray):
     carrying the winning point's re/im planes instead of its index.
 
     Exists for the decision-directed passes: ``tab[_nearest_sym(x)[0]]``
-    is a traced index gather, which lowers catastrophically on TPU under
-    the candidate vmap (measured 1.17 ms / 484 MB of the refine stage's
-    1.78 ms — scripts/refine_probe.py); the value carry costs two extra
-    ``[n]`` planes in the scan and no gather at all."""
+    is a traced index gather under the candidate vmap; the value carry
+    costs two extra ``[n]`` planes in the scan and no gather at all."""
     C = table.shape[0]
     ck = _DEMOD_CHUNK
     xr, xi = jnp.real(x), jnp.imag(x)
@@ -673,9 +667,7 @@ def generic_demod_soft(x: jnp.ndarray, mod: jnp.ndarray, max_bits: int,
         trk, tik, bmk = cs
         # unrolled elementwise updates (same rationale as _nearest_sym:
         # a [n, ck] distance tile with 16 reduction consumers
-        # materializes, and its 16-lane minor axis pads 8x on TPU).
-        # Carries are 8+8 separate [n] planes — a [n, 8] carry would
-        # itself pad 16x on the chip.
+        # materializes).  Carries are 8+8 separate [n] planes.
         d0s, d1s = list(d0s), list(d1s)
         for k in range(ck):
             d = (xr - trk[k]) ** 2 + (xi - tik[k]) ** 2  # [n]

@@ -310,7 +310,7 @@ def _assemble_traced(rate: int, length: int, seed: int,
     against static PN, the K=7 convolutional encoder as five shifted-XOR
     streams, puncture/interleave as static gathers, constellation map as
     LUT gathers, and the 64-point IFFT as one [n_sym+1, 64] matmul
-    against the DFT matrix (MXU-shaped; also what the planar transform
+    against the DFT matrix (matmul-shaped; also what the planar transform
     would produce, so complex-rejecting backends lower it unchanged)."""
     c = _assemble_consts(rate, length, seed)
     n_data_bits = c["n_sym"] * c["ndbps"]
@@ -347,7 +347,10 @@ def _assemble_traced(rate: int, length: int, seed: int,
     grids = jnp.concatenate([jnp.asarray(c["sig_grid"])[None, :], grids])
     # IFFT as one DFT matmul + CP via slicing (scale 64/sqrt(52) folds
     # the module power normalization, as in _symbols_to_time)
-    time = (grids @ jnp.asarray(c["Winv"])) * \
+    # HIGHEST: the TX waveform must match the Annex-G goldens, which
+    # TF32's ~3 decimal digits would not
+    time = jnp.matmul(grids, jnp.asarray(c["Winv"]),
+                      precision=jax.lax.Precision.HIGHEST) * \
         jnp.complex64(_N_FFT / np.sqrt(52))
     with_cp = jnp.concatenate([time[:, -_CP:], time], axis=-1)
     return jnp.concatenate([
@@ -444,8 +447,7 @@ def make_wlan_sync(block_size: int = 8192, max_psdu: int = 256,
 
 
 def wlan_sync_init(sync: WlanSync) -> WlanSyncState:
-    from ..ops import iqfmt
-    return WlanSyncState(tail=iqfmt.czeros((sync.overlap,)),
+    return WlanSyncState(tail=jnp.zeros((sync.overlap,), jnp.complex64),
                          base=jnp.int32(-sync.overlap))
 
 
@@ -469,7 +471,8 @@ def _wlan_metric(sync: WlanSync, ext: jnp.ndarray) -> jnp.ndarray:
     x = ext[:L]
     win = x[jnp.arange(L - _DET_SEG + 1)[:, None] +
             jnp.arange(_DET_SEG)[None, :]]           # [L-7, 8]
-    C = win @ jnp.asarray(tmpl).T                    # [L-7, 16]
+    C = jnp.matmul(win, jnp.asarray(tmpl).T,
+                   precision=jax.lax.Precision.HIGHEST)  # [L-7, 16]
     e8 = jnp.convolve(jnp.abs(x) ** 2, jnp.ones(_DET_SEG), "valid")
     rows = jnp.arange(R)[:, None] + _DET_SEG * jnp.arange(_DET_NSEG)
     c = C[rows, jnp.arange(_DET_NSEG)[None, :]]      # [R, 16]

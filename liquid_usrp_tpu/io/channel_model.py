@@ -1,7 +1,7 @@
 """Synthetic channel impairments for loopback testing.
 
 The reference has no channel model — its "test" is over-the-air loopback with
-real noise (SURVEY.md §4).  The TPU framework replaces the air with a
+real noise (SURVEY.md §4).  This framework replaces the air with a
 deterministic impairment chain (AWGN, carrier-frequency offset, phase, delay,
 gain, optional multipath), so every loopback test is reproducible and BER/PER
 curves can be swept at exact SNRs.

@@ -2,7 +2,7 @@
 
 The reference decouples hardware I/O from demodulation with an RX worker
 pthread + condvar handshake (/root/reference/lib/ofdmtxrx.cc:554-636).  The
-TPU equivalent: a producer thread keeps a bounded queue of IQ blocks filled
+equivalent here: a producer thread keeps a bounded queue of IQ blocks filled
 (from a file via the native double-buffered reader, or any iterator) while
 the consumer drives the jitted synchronizer step; JAX's async dispatch
 overlaps the device work with the next block's host-side preparation, so
@@ -16,7 +16,6 @@ from typing import Callable, Iterable, Iterator
 
 import numpy as np
 
-from ..ops import iqfmt
 
 __all__ = ["BlockPrefetcher", "run_pipelined", "AsyncTxProducer"]
 
@@ -80,12 +79,12 @@ def run_pipelined(source: Iterable[np.ndarray], step: Callable, state,
     import jax.numpy as jnp
 
     def stage(blk):
-        # complex blocks stage through float planes (transport-safe,
-        # iqfmt.device_put_c64); planes/wire-code arrays ([2, ...] int8/
-        # int16/bf16) keep their dtype so iq_from_any dequantizes them
+        # complex blocks go up as complex64; planes/wire-code arrays
+        # ([2, ...] int8/int16/bf16) keep their dtype so iq_from_any
+        # dequantizes them
         blk = np.asarray(blk)
         if np.iscomplexobj(blk):
-            return iqfmt.device_put_c64(blk)
+            return jnp.asarray(blk, jnp.complex64)
         return jnp.asarray(blk)
 
     pending = None

@@ -15,7 +15,7 @@ arrays with the same sample format:
 
 Block-oriented read/write mirrors the reference's 256-sample send buffers
 and one-packet recv granularity (/root/reference/src/flexframe_tx.cc:197,
-lib/ofdmtxrx.cc:560) — but with TPU-friendly block sizes.
+lib/ofdmtxrx.cc:560) — but with accelerator-friendly block sizes.
 """
 from __future__ import annotations
 

@@ -18,7 +18,7 @@ Capability parity with the reference's three classes:
   composition with TX/RX workers and channel-availability polling
   (217-299); the worker threads become block-wise pure steps.
 
-TPU-first shape: the reference's per-sample NCO + every-2N-samples
+Block-step shape: the reference's per-sample NCO + every-2N-samples
 channelizer firing (lib/multichannelrx.cc:155-182) becomes one fused jitted
 step over a whole IQ block: ``mix -> [T/2N, 2N] analyze -> vmapped N-channel
 sync``.
@@ -148,8 +148,8 @@ class MultichannelTx:
                 Y[:take, ch] = q[:take]
                 self._queues[ch] = q[take:]
         self._mctx_state, y = self._mctx_step(self._mctx_state,
-                                              iqfmt.device_put_c64(Y))
-        return iqfmt.device_get_c64(y)
+                                              jnp.asarray(Y))
+        return np.asarray(y)
 
     # -- async TX worker ----------------------------------------------------
     # The reference streams TX from a dedicated worker thread that keeps
@@ -292,9 +292,9 @@ def make_mcrx_step(num_channels: int, sync: ofdm_sync.OfdmSync):
     N = num_channels
     chz = pfb_mod.pfbch_create(2 * N, m=7, As=60.0)
 
-    @jax.jit                      # compiled init: complex state is
-    def init_state() -> McrxState:   # created on device, never crossing
-        one = ofdm_sync.sync_init(sync)   # the transport (ops/iqfmt.py)
+    @jax.jit                      # one compiled fill for the whole state
+    def init_state() -> McrxState:
+        one = ofdm_sync.sync_init(sync)
         stacked = jax.tree.map(
             lambda x: jnp.broadcast_to(x, (N,) + x.shape), one)
         return McrxState(
@@ -337,9 +337,9 @@ def make_mcrx_batched_step(num_channels: int,
     chz = pfb_mod.pfbch_create(2 * N, m=7, As=60.0)
     bs = sync.block_size
 
-    @jax.jit                      # compiled init: complex state is
-    def init_state() -> McrxState:   # created on device, never crossing
-        one = ofdm_sync.sync_init(sync)   # the transport (ops/iqfmt.py)
+    @jax.jit                      # one compiled fill for the whole state
+    def init_state() -> McrxState:
+        one = ofdm_sync.sync_init(sync)
         stacked = jax.tree.map(
             lambda x: jnp.broadcast_to(x, (N,) + x.shape), one)
         return McrxState(
@@ -406,8 +406,8 @@ class MultichannelRx:
         frames = []
         while len(buf) >= g:
             chunk, buf = buf[:g], buf[g:]
-            self._state, res = self._step(self._state,
-                                          iqfmt.device_put_c64(chunk))
+            self._state, res = self._step(
+                self._state, jnp.asarray(chunk, jnp.complex64))
             det = np.asarray(res.detected)
             for ch, i in zip(*np.nonzero(det)):
                 row = {
@@ -451,9 +451,9 @@ class MultichannelRx:
         chz = pfb_mod.pfbch_create(g, m=7, As=60.0)
         _, y = nco_mod.nco_mix_block(
             nco_mod.nco_init(-_center_offset(N)),
-            iqfmt.device_put_c64(x), up=True)
+            jnp.asarray(x), up=True)
         _, X = pfb_mod.pfb_analyze_block(chz, pfb_mod.pfbch_state(chz), y)
-        return iqfmt.device_get_c64(X[:, :N].T)
+        return np.asarray(X[:, :N].T)
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,7 @@ Capability parity with the reference's ``ofdmtxrx`` class
   frame`` (366-449);
 * ``start_rx``/``stop_rx`` and a frame callback (486-508, 554-636).
 
-TPU-first redesign: UHD handles become IQ stream endpoints (arrays / files /
+Block-step redesign: UHD handles become IQ stream endpoints (arrays / files /
 virtual air), the RX worker pthread becomes block-wise jitted sync steps
 driven by :meth:`run_rx`, and the callback receives structured
 :class:`FrameResults` rows instead of firing from a worker thread.  The
@@ -31,7 +31,6 @@ import numpy as np
 
 from ..framing import ofdm, ofdm_sync
 from ..framing import payload as payload_codec
-from ..ops import iqfmt
 from ..ops import fec as fec_mod
 from ..ops import modem as modem_mod
 
@@ -168,7 +167,7 @@ class OfdmTxRx:
             self.params, self.props, header, payload,
             expansion=self.expansion,
             rx_max_payload=self._sync.max_payload) * g
-        out = iqfmt.device_get_c64(samples)   # transport-safe fetch
+        out = np.asarray(samples)
         self._tx_buffer.append(out)
         return out
 
@@ -177,7 +176,7 @@ class OfdmTxRx:
                        fec1=None):
         self.set_properties(fec0=fec0, fec1=fec1, mod=mod)
         g = 10.0 ** (self.radio.tx_gain_soft / 20.0)
-        self._assembled = iqfmt.device_get_c64(ofdm.assemble_frame(
+        self._assembled = np.asarray(ofdm.assemble_frame(
             self.params, self.props,
             jnp.asarray(np.asarray(header, dtype=np.uint8)),
             jnp.asarray(np.asarray(payload, dtype=np.uint8)),
@@ -251,7 +250,7 @@ class OfdmTxRx:
             raise RuntimeError("debug_enable() first, then run_rx()")
         metric = np.asarray(
             ofdm_sync._detect_metric(
-                self._sync, iqfmt.device_put_c64(samples))[0])
+                self._sync, jnp.asarray(samples, jnp.complex64))[0])
         path = f"{prefix}_framesync_debug.m"
         with open(path, "w") as f:
             f.write("%% ofdmtxrx debug capture (octave)\nclear all;\n")
@@ -327,7 +326,7 @@ class OfdmTxRx:
                 from ..io.native import cf32_to_sc8_planes
                 return jnp.asarray(cf32_to_sc8_planes(arr.reshape(-1))
                                    .reshape((2,) + shape))
-            return iqfmt.device_put_c64(arr.reshape(shape))
+            return jnp.asarray(arr.reshape(shape), jnp.complex64)
 
         b = 0
         last_block = None
@@ -335,8 +334,8 @@ class OfdmTxRx:
             if n_blocks - b >= nb and nb > 1:
                 chunk = samples[b * bs:(b + nb) * bs].reshape(nb, bs)
                 if self.rx_transform is not None:
-                    chunk = np.stack([iqfmt.device_get_c64(
-                        self.rx_transform(iqfmt.device_put_c64(row)))
+                    chunk = np.stack([np.asarray(
+                        self.rx_transform(jnp.asarray(row, jnp.complex64)))
                         for row in chunk])
                 if self._bstep is None:
                     sync = self._sync
@@ -354,8 +353,8 @@ class OfdmTxRx:
             else:
                 blk = samples[b * bs:(b + 1) * bs]
                 if self.rx_transform is not None:
-                    blk = iqfmt.device_get_c64(
-                        self.rx_transform(iqfmt.device_put_c64(blk)))
+                    blk = np.asarray(
+                        self.rx_transform(jnp.asarray(blk, jnp.complex64)))
                 self._rx_state, res = self._step(self._rx_state,
                                                  to_dev(blk, (bs,)))
                 self._emit_rows(jax.device_get(res), frames)

@@ -4,7 +4,7 @@ Capability parity: ``agc_crcf_{create,set_bandwidth,execute,
 get_signal_level,get_rssi}`` as used by the receive-power meter app
 (/root/reference/src/rssi.cc:115-116,187-190,202).
 
-TPU-first design: the AGC loop is a first-order IIR on the instantaneous
+Block design: the AGC loop is a first-order IIR on the instantaneous
 power estimate — a linear recurrence, so a whole block is processed with one
 associative-scan (``lax.associative_scan``) instead of a per-sample loop.
 Returns the gain-corrected block plus per-sample signal level / RSSI so

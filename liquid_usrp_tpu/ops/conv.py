@@ -7,7 +7,7 @@ ofdmflexframe_tx.cc:90): ``v27`` (K=7 r=1/2), ``v29`` (K=9 r=1/2), ``v39``
 (K=9 r=1/3), ``v615`` (K=15 r=1/6), and the punctured K=7/K=9 variants
 ``v27p23..v27p78`` / ``v29p23..v29p78``.
 
-TPU-first design: the encoder is a GF(2) FIR per generator polynomial
+Batched design: the encoder is a GF(2) FIR per generator polynomial
 (matmul of sliding windows); puncturing is a static keep-mask.  The decoder
 is a Viterbi trellis expressed as a ``lax.scan`` over time with *all
 states* updated as one vector op per step — add-compare-select becomes a
@@ -146,6 +146,7 @@ def conv_encode(scheme: int, data: jnp.ndarray) -> jnp.ndarray:
         # (K-1-i), so taps[j] = g bit j
         taps = jnp.asarray([(g >> j) & 1 for j in range(K)],
                            dtype=jnp.float32)
+        # 0/1 operands: exact at DEFAULT precision (see gf2_matmul)
         y = jnp.matmul(windows.astype(jnp.float32), taps,
                        preferred_element_type=jnp.float32)
         outs.append((y.astype(jnp.int32) & 1).astype(jnp.uint8))

@@ -9,15 +9,14 @@ measurement per site:
   correlations: one forward FFT of the stream is shared by every stage
   (MF and template correlations compose by multiplying their
   host-precomputed frequency responses).  3-6x the throughput of
-  time-domain ``jnp.convolve``/``lax.conv`` on the host backend;
-  XLA's FFT is fast on TPU as well.
+  time-domain ``jnp.convolve``/``lax.conv`` on the host backend.
 * **Reshape-cumsum comb moving sums** for ones-kernel energy terms:
   ``y[n] = sum_{d<D} x[n + k d]`` is a per-residue moving sum on the
   ``[L/k, k]`` reshape — O(L), no transform, exact.
 
 The many-channel segmented correlation (GMSK's 8-segment metric) stays a
 dilated ``lax.conv`` at its call site: per-channel inverse FFTs would
-cost more than the conv there, and on TPU the conv rides the MXU.
+cost more than the conv there.
 """
 from __future__ import annotations
 
@@ -62,38 +61,13 @@ def comb_moving_sum(x: jnp.ndarray, D: int, k: int,
 def sliding_max(x: jnp.ndarray, radius: int) -> jnp.ndarray:
     """``out[i] = max(x[i-radius : i+radius+1])`` ("SAME", -inf padded).
 
-    van Herk / Gil-Werman: two per-block running maxima + one combine —
-    O(1) work per sample for any radius, all static slices.  Replaces
-    ``lax.reduce_window`` in the detector NMS passes, which costs
-    O(window) per sample on TPU (measured 1.42 ms for a 97-wide window
-    over a 65k block — the whole detect stage's dominant term; an
-    arange-indexed gather variant was worse, 557 MB of HBM, the usual
-    TPU gather pathology).  On XLA:CPU the preference INVERTS
-    (reduce_window vectorizes well there; the composed noise-path step
-    measured 3.22 vs 4.66 ms/32k block), so the form is picked by
-    backend at trace time — both produce bit-identical outputs (max is
-    insensitive to association order), proven in
-    tests/test_tpu_lowering_forms.py.
+    One ``lax.reduce_window``.  The O(1)-per-sample van Herk / Gil-Werman
+    form (two per-block running maxima) lost to it on both backends the
+    detectors run on: at the flagship NMS shape (8 rows x 65633 samples,
+    radius 48) van Herk took 0.133 ms and reduce_window 0.127 ms on an
+    NVIDIA H100 80GB HBM3 at a 700 W power limit; on XLA:CPU the
+    composed noise-path step took 4.66 vs 3.22 ms per 32k block.
     """
-    import jax
     from jax import lax
-    if jax.default_backend() == "cpu":
-        return lax.reduce_window(x, -jnp.inf, lax.max,
-                                 (2 * radius + 1,), (1,), "SAME")
-    return _sliding_max_vanherk(x, radius)
-
-
-def _sliding_max_vanherk(x: jnp.ndarray, radius: int) -> jnp.ndarray:
-    from jax import lax
-    W = 2 * radius + 1
-    n = x.shape[0]
-    nt = -(-(n + 2 * radius) // W)
-    neg = jnp.full((1,), -jnp.inf, x.dtype)
-    xp = jnp.concatenate([
-        jnp.broadcast_to(neg, (radius,)), x,
-        jnp.broadcast_to(neg, (nt * W - n - radius,))])
-    blocks = xp.reshape(nt, W)
-    P = lax.cummax(blocks, axis=1).reshape(-1)
-    S = lax.cummax(blocks[:, ::-1], axis=1)[:, ::-1].reshape(-1)
-    return jnp.maximum(lax.slice(S, (0,), (n,)),
-                       lax.slice(P, (W - 1,), (W - 1 + n,)))
+    return lax.reduce_window(x, -jnp.inf, lax.max, (2 * radius + 1,), (1,),
+                             "SAME")

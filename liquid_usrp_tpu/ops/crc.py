@@ -5,7 +5,7 @@ data-validity checks per packet (defaults at /root/reference/lib/ofdmtxrx.cc:80
 and /root/reference/src/gmskframe_tx.cc:64); every frame decode reports
 ``payload_valid`` from the CRC.
 
-TPU-first design: a CRC with ``init=0, xorout=0`` is **linear over GF(2)** in
+Batched design: a CRC with ``init=0, xorout=0`` is **linear over GF(2)** in
 the message bits.  We therefore precompute (host-side, NumPy):
 
 * ``basis[d]`` — the CRC response to a single 1-bit at distance ``d`` from the

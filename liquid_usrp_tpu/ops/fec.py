@@ -6,9 +6,9 @@ ofdmtxrx.cc:82, Golay(24,12) at /root/reference/src/ofdmflexframe_tx.cc:72,
 Hamming(7,4) at /root/reference/src/gmskframe_tx.cc:65; CLI string parser at
 e.g. /root/reference/src/ofdmflexframe_tx.cc:90).
 
-TPU-first design: every linear block code here is
+Batched design: every linear block code here is
 
-* encode:  ``bits[nb, k] @ G % 2``  — an integer matmul (MXU for batches),
+* encode:  ``bits[nb, k] @ G % 2``  — an integer matmul (dense for batches),
 * decode:  syndrome ``r @ H^T % 2`` -> gather into a precomputed
   syndrome -> error-pattern table -> XOR-correct -> take systematic bits.
 
@@ -313,12 +313,15 @@ def golay_decode_soft(llr_blocks: jnp.ndarray) -> jnp.ndarray:
     ``llr_blocks [..., 24]`` float LLRs (positive => bit 1) -> message
     bits ``[..., 12]`` uint8.  ML = argmax over codeword correlations,
     computed as ONE dense ``[..., 24] @ [24, 4096]`` matmul — the
-    TPU-shaped formulation (MXU) of what a CPU decoder does with
+    accelerator-shaped formulation of what a CPU decoder does with
     syndrome tables; worth ~2 dB over hard-decision syndrome decoding
     at the header's operating point.
     """
     cw = jnp.asarray(_golay_codewords_pm1())           # [4096, 24]
-    score = llr_blocks.astype(jnp.float32) @ cw.T      # [..., 4096]
+    # HIGHEST: in TF32 the LLRs keep ~3 decimal digits, enough to flip
+    # the argmax between two near-tied codewords
+    score = jnp.matmul(llr_blocks.astype(jnp.float32), cw.T,
+                       precision=jax.lax.Precision.HIGHEST)  # [..., 4096]
     best = jnp.argmax(score, axis=-1).astype(jnp.uint32)
     bits = (best[..., None] >> jnp.arange(11, -1, -1, dtype=jnp.uint32)) & 1
     return bits.astype(jnp.uint8)

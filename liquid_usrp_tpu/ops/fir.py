@@ -5,12 +5,12 @@ surface as used by the reference (matched-filter interpolator at
 /root/reference/src/narrowband_tx.cc:157,197; every framegen/framesync
 internally is FIR-based).
 
-TPU-first design: the reference filters one sample per call through a
+Block design: the reference filters one sample per call through a
 delay line; here each operator is a pure ``step(state, block) -> (state',
 out)`` over a whole IQ block.  The carried state is exactly the filter memory
 (last ``L-1`` inputs), so results are bit-identical regardless of block size
 (overlap-save invariance — tested).  Convolutions are expressed with
-``jnp.convolve`` / strided reshapes, which XLA lowers to fused TPU convs;
+``jnp.convolve`` / strided reshapes, which XLA lowers to fused convolutions;
 polyphase structure (interp) turns the upsample-then-filter pattern into a
 dense per-phase matmul with zero wasted MACs.
 """
@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -31,20 +32,13 @@ class FirState(NamedTuple):
     tail: jnp.ndarray  # last (L-1) inputs, complex64 [L-1]
 
 
-def _state_zeros(n: int, dtype) -> jnp.ndarray:
-    if jnp.dtype(dtype) == jnp.complex64:
-        from .iqfmt import czeros     # transport-safe compiled fill
-        return czeros((n,))
-    return jnp.zeros((n,), dtype=dtype)
-
-
 def fir_init(ntaps: int, dtype=jnp.complex64) -> FirState:
-    return FirState(tail=_state_zeros(ntaps - 1, dtype))
+    return FirState(tail=jnp.zeros((ntaps - 1,), dtype))
 
 
 def firinterp_init(ntaps: int, k: int, dtype=jnp.complex64) -> FirState:
     P = -(-ntaps // k)  # taps per polyphase branch
-    return FirState(tail=_state_zeros(P - 1, dtype))
+    return FirState(tail=jnp.zeros((P - 1,), dtype))
 
 
 def _conv_valid(x: jnp.ndarray, h: jnp.ndarray) -> jnp.ndarray:
@@ -82,7 +76,10 @@ def firinterp_block(taps: jnp.ndarray, k: int, state: FirState,
     # windows[i, m] = x[i - m] = ext[i + P - 1 - m]
     idx = (jnp.arange(n)[:, None] + (P - 1) - jnp.arange(P)[None, :])
     windows = ext[idx]  # [N, P]
-    y = windows @ phases.astype(ext.dtype)  # [N, k]
+    # HIGHEST: a float32 matmul may otherwise run in TF32 (~3 decimal
+    # digits) on a GPU, well above the filters' stopband floor
+    y = jnp.matmul(windows, phases.astype(ext.dtype),
+                   precision=jax.lax.Precision.HIGHEST)  # [N, k]
     return FirState(tail=ext[ext.shape[0] - (P - 1):]), y.reshape(n * k)
 
 

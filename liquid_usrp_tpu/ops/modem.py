@@ -7,7 +7,7 @@ src/gmskframe_tx.cc:43) and uses ``modem_modulate`` for the narrowband TX app
 carries a ``mod_scheme`` (QPSK default everywhere, /root/reference/lib/
 ofdmtxrx.cc:83).
 
-TPU-first design: modulation is a table gather ``const_table[symbols]``;
+Batched design: modulation is a table gather ``const_table[symbols]``;
 demodulation is a vectorized nearest-point search — a ``[num_symbols,
 M]`` distance matrix reduced with ``argmin`` (for rectangular gray-coded QAM
 this is overkill but uniform, branch-free, and batches perfectly; XLA fuses
@@ -91,8 +91,8 @@ MOD_APSK128 = 38
 MOD_APSK256 = 39
 MOD_OOK = 40
 MOD_V29 = 41
-# ids 42+: the remaining liquid string-parser surface (VERDICT r3
-# missing #2, parser at /root/reference/src/gmskframe_tx.cc:43):
+# ids 42+: the remaining liquid string-parser surface (parser at
+# liquid-usrp src/gmskframe_tx.cc:43):
 # quadrant-replicated 'square' cross-QAM and optimal-packing /
 # arbitrary-demo constellations
 MOD_SQAM32 = 42

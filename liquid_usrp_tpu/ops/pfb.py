@@ -7,13 +7,14 @@ lib/multichannelrx.cc:89-91,188).  The reference fires the channelizer once
 per ``M = 2N`` samples inside a per-sample loop; here a whole IQ block is
 processed in one shot.
 
-TPU-first design: the critically-sampled DFT filterbank factors into
+Batched design: the critically-sampled DFT filterbank factors into
 (1) a reshape of the stream into ``[n_frames, M]`` frames, (2) ``P`` fused
 multiply-add taps along the frame axis per polyphase branch (the prototype
 ``h[qM+p]`` becomes a ``[P, M]`` coefficient array broadcast over frames) and
 (3) a batched length-``M`` (I)FFT across branches.  All three map cleanly
-onto the VPU/MXU + XLA's native FFT; the carried state is the last ``P-1``
-frames so block boundaries are exact (overlap-save invariance, tested).
+onto fused elementwise work + XLA's native FFT; the carried state is the
+last ``P-1`` frames so block boundaries are exact (overlap-save
+invariance, tested).
 
 Channel semantics: analysis output ``X_k[n]`` is the channel-``k`` (center
 frequency ``k/M`` cycles/sample) baseband stream decimated by ``M``:
@@ -32,7 +33,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from . import iqfmt
 from .filter_design import pfb_channelizer_prototype
 
 __all__ = [
@@ -63,7 +63,7 @@ def pfbch_create(num_channels: int, m: int = 7, As: float = 60.0) -> Pfbch:
 
 def pfbch_state(ch: Pfbch) -> PfbchState:
     return PfbchState(
-        frames=iqfmt.czeros((ch.P - 1, ch.M)))
+        frames=jnp.zeros((ch.P - 1, ch.M), jnp.complex64))
 
 
 def _branch_filter(ch: Pfbch, state_frames: jnp.ndarray,

@@ -9,7 +9,7 @@ Capability parity with the reference's resampling surface:
 * ``msresamp_crcf`` multi-stage arbitrary resampler, 60 dB stopband
   (/root/reference/src/flexframe_tx.cc:170,237 et al.).
 
-TPU-first design.  The reference steps a phase accumulator one sample at a
+Static-shape design.  The reference steps a phase accumulator one sample at a
 time; variable output counts per call (``nw``, /root/reference/src/
 flexframe_rx.cc:239-243) are the blocker for static-shape compilation
 (SURVEY.md §7 hard part 3).  Here the arbitrary resampler materializes the
@@ -27,15 +27,12 @@ stage in ``(0.5, 1]``, so only the last stage produces masked output.
 """
 from __future__ import annotations
 
-import math
 from fractions import Fraction
 from typing import NamedTuple
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
-from . import iqfmt
 from .filter_design import firdes_kaiser, halfband_kaiser
 from .fir import FirState, fir_init, fir_block, firinterp_block, \
     firinterp_init
@@ -138,7 +135,7 @@ def resamp_create(rate: float, m: int = 7, fc: float = 0.45,
 
 
 def resamp_state(rs: Resamp) -> ResampState:
-    return ResampState(tail=iqfmt.czeros((rs.P - 1,)),
+    return ResampState(tail=jnp.zeros((rs.P - 1,), jnp.complex64),
                        i0=jnp.int32(0), num0=jnp.int32(0))
 
 
@@ -175,93 +172,6 @@ def resamp_max_out(rs: Resamp, n_in: int) -> int:
     return int(np.ceil(n_in * rs.rate)) + 2
 
 
-# rates whose stride denominator is at most this can use the rational
-# fast path: per-phase-class strided CONVOLUTIONS with per-class
-# interpolated filters, instead of the [max_out, P] window gather.
-# App-chain rates (2.0, 0.5, 1.5, 4/3, ...) all qualify; only
-# arbitrary/set_rate values with large snapped denominators fall back.
-# Backend gating: the conv form targets TPU (where the big gather is
-# the known weak spot); on CPU the gather form measures 3-4x FASTER
-# (40 vs 12 MS/s at rate 1.5), so CPU keeps it.  Tests force the
-# rational path with _RATIONAL_ON_CPU to pin numerical equality.
-_RATIONAL_Q_MAX = 64
-_RATIONAL_ON_CPU = False
-
-
-def _use_rational(rs: Resamp) -> bool:
-    if rs.q > _RATIONAL_Q_MAX:
-        return False
-    if _RATIONAL_ON_CPU:
-        return True
-    return jax.default_backend() == "tpu"
-
-
-def _resamp_block_rational(rs: Resamp, state: ResampState, x: jnp.ndarray):
-    """Fast path for small stride denominators.
-
-    The fractional phase ``num = (num0 + j*b) mod p`` is periodic in the
-    output slot with period ``p' = p / gcd(b, p)``, so outputs split into
-    ``p'`` classes; within a class the phase (hence the interpolated
-    filter row) is CONSTANT and the input index advances by the constant
-    stride ``S = p'*a + p'*b/p``.  Each class is then one strided
-    convolution of the extended input with a single real filter — dense
-    MXU-shaped work with no gathers.  Bitwise-equal timing to the
-    general path (same integer grid); float sums may differ at the
-    1-ulp level (different reduction order).
-    """
-    n = x.shape[-1]
-    p = rs.q
-    pprime = p // math.gcd(rs.b, p) if rs.b else 1
-    S = pprime * rs.a + (pprime * rs.b) // p
-    max_out = resamp_max_out(rs, n)
-    m_max = -(-max_out // pprime)             # slots per class (padded)
-    ext = jnp.concatenate([state.tail, x])    # [P-1 + n]
-    # static padding so every class's dynamic_slice window exists:
-    # start <= (a+1)*p' (i0 < a+1 carried, r < p'), span (m_max-1)*S + P
-    pad = (rs.a + 1) * pprime + S + rs.P
-    extp = jnp.concatenate([ext, jnp.zeros((pad,), ext.dtype)])
-    seg_len = (m_max - 1) * S + rs.P
-    pfb = jnp.asarray(rs.pfb)
-
-    j_all = jnp.arange(max_out, dtype=jnp.int32)
-    num_all = state.num0 + j_all * rs.b
-    i_all = state.i0 + j_all * rs.a + num_all // p
-    valid = i_all < n
-
-    ys = jnp.zeros((max_out,), x.dtype)
-    for r in range(pprime):
-        num_r = state.num0 + r * rs.b
-        i_r = state.i0 + r * rs.a + num_r // p
-        frac = (num_r % p).astype(jnp.float32) / p
-        ph = frac * rs.npfb
-        ph_lo = jnp.floor(ph).astype(jnp.int32)
-        w = ph - ph_lo
-        h = pfb[ph_lo] * (1.0 - w) + pfb[ph_lo + 1] * w      # [P]
-        seg = jax.lax.dynamic_slice(
-            extp, (jnp.clip(i_r, 0, extp.shape[0] - seg_len),),
-            (seg_len,))
-        # real filter on I/Q as a size-2 batch; correlation semantics
-        # need the reversed taps to realize the convolution orientation
-        lhs = jnp.stack([seg.real, seg.imag])[:, None, :]    # [2,1,L]
-        rhs = h[::-1][None, None, :]                          # [1,1,P]
-        z = jax.lax.conv_general_dilated(
-            lhs, rhs, window_strides=(S,), padding="VALID")  # [2,1,m_max]
-        zc = (z[0, 0] + 1j * z[1, 0]).astype(x.dtype)
-        n_r = len(range(r, max_out, pprime))
-        ys = ys.at[r::pprime].set(zc[:n_r])
-    ys = jnp.where(valid, ys, 0.0)
-
-    count = jnp.sum(valid.astype(jnp.int32))
-    num_c = state.num0 + count * rs.b
-    i_next = state.i0 + count * rs.a + num_c // p
-    new_state = ResampState(
-        tail=ext[ext.shape[0] - (rs.P - 1):],
-        i0=(i_next - n).astype(jnp.int32),
-        num0=(num_c % p).astype(jnp.int32),
-    )
-    return new_state, ys, valid, count
-
-
 def resamp_block(rs: Resamp, state: ResampState, x: jnp.ndarray):
     """Resample a block: ``[N] -> (state', y[max_out], valid[max_out], count)``.
 
@@ -269,11 +179,14 @@ def resamp_block(rs: Resamp, state: ResampState, x: jnp.ndarray):
     ``t_j = i0 + j*a + (num0 + j*b)/q`` (input-sample units); its value is the
     input window at ``floor(t_j)`` dotted with the polyphase filter at the
     fractional phase, linearly interpolated between adjacent phase filters.
-    Small stride denominators route through the gather-free rational
-    fast path (see :func:`_resamp_block_rational`).
+
+    One ``[max_out, P]`` window gather for any rate.  A gather-free form
+    (one strided convolution per phase class, for small stride
+    denominators) lost to it on both backends: through the app chain's
+    msresamp on 16384-sample blocks it took 0.283 vs 0.133 ms at rate 1.5
+    and 0.209 vs 0.195 ms at rate 2.0 on an NVIDIA H100 80GB HBM3 at a
+    700 W power limit, and ran 3-4x slower on XLA:CPU.
     """
-    if _use_rational(rs):
-        return _resamp_block_rational(rs, state, x)
     n = x.shape[-1]
     max_out = resamp_max_out(rs, n)
     if max_out * rs.b + rs.q >= 2 ** 31:

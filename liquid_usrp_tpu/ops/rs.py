@@ -1,4 +1,4 @@
-"""Reed-Solomon RS(255,223) over GF(256) — batched TPU codec.
+"""Reed-Solomon RS(255,223) over GF(256) — batched device codec.
 
 Capability parity: liquid-dsp offers ``rs8``, an RS(255,223) code (via the
 optional libfec the reference probes for at /root/reference/
@@ -7,13 +7,13 @@ implementation uses the conventional GF(256) generated by ``x^8+x^4+x^3+
 x^2+1`` (0x11D), first consecutive root alpha^1 (t = 16 byte errors per
 block).
 
-TPU-first formulation:
+Batched formulation:
 
 * **Encode and syndromes are GF(2)-linear**: multiplying a GF(256) element
   by a *constant* is linear over its 8 component bits, so the systematic
   parity map (message -> 32 parity bytes) and the syndrome map (codeword ->
   32 syndromes) are precomputed binary matrices; both run as single
-  ``gf2_matmul`` MXU dots (the same trick as the CRC kernel).
+  ``gf2_matmul`` dots (the same trick as the CRC kernel).
 * **Berlekamp-Massey** runs a fixed 32-iteration ``fori_loop`` with masked
   updates, vectorized over blocks.
 * **Chien search + Forney** evaluate the locator/evaluator polynomials at

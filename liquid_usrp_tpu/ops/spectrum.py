@@ -5,7 +5,7 @@ ASCII FFT waterfall app (/root/reference/src/asgram_rx.cc:141-142,207,
 213-224): sliding windowed FFT power in dB, quantized to a character ramp,
 with peak value/frequency annotation.
 
-TPU-first design: the sample ring buffer + one-FFT-per-poll of the reference
+Batched design: the sample ring buffer + one-FFT-per-poll of the reference
 becomes a batched op — all requested FFT frames of a block are windowed and
 transformed at once (``[n_frames, nfft]``); the ASCII quantization is a
 host-side formatting step over the returned dB rows.

@@ -4,8 +4,9 @@ Capability parity: ``windowcf_{create,push,write,read}`` ring logs used for
 IQ/RSSI capture dumps (/root/reference/src/rssi.cc:119-120,184-190,225-226
 and src/asgram_rx.cc:134,210,244).
 
-TPU-first design: a ring buffer as a pure pytree — block ``push`` is a roll +
-dynamic-update-slice; ``read`` returns the contiguous time-ordered view.
+Functional design: a ring buffer as a pure pytree — block ``push`` is a
+roll + dynamic-update-slice; ``read`` returns the contiguous time-ordered
+view.
 """
 from __future__ import annotations
 
@@ -13,7 +14,6 @@ from typing import NamedTuple
 
 import jax.numpy as jnp
 
-from . import iqfmt
 
 __all__ = ["RingLog", "ring_init", "ring_push", "ring_read", "ring_valid"]
 
@@ -24,10 +24,7 @@ class RingLog(NamedTuple):
 
 
 def ring_init(capacity: int, dtype=jnp.complex64) -> RingLog:
-    if jnp.dtype(dtype) == jnp.complex64:
-        buf = iqfmt.czeros((capacity,))   # transport-safe fill (iqfmt)
-    else:
-        buf = jnp.zeros((capacity,), dtype=dtype)
+    buf = jnp.zeros((capacity,), dtype=dtype)
     return RingLog(buf=buf, count=jnp.int32(0))
 
 

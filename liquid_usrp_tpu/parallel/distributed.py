@@ -1,16 +1,16 @@
-"""Multi-host launch helpers (ICI + DCN).
+"""Multi-host launch helpers.
 
 The reference is strictly single-host (SURVEY.md §2.2 — its only transport
-is UHD + pthread shared memory).  The TPU framework scales across hosts by
+is UHD + pthread shared memory).  This framework scales across hosts by
 initializing the JAX distributed runtime and building the ``(time,
 channel)`` mesh over the global device set; halo/state exchange then rides
-ICI within a slice and DCN across slices automatically through the mesh
-axes (the BASELINE.json >=80% 1->N-host scaling target).
+the interconnect (NVLink within a host, the network across hosts)
+through the mesh axes (the BASELINE.json >=80% 1->N-host scaling target).
 
-Typical pod-slice launch (same program on every host):
+Typical multi-process launch (same program in every process):
 
     from liquid_usrp_tpu.parallel import distributed, mesh, stream
-    distributed.init()                       # env-driven coordinator
+    distributed.init("localhost:1234", 4, rank)   # or the JAX_* env vars
     m = mesh.make_sdr_mesh()                 # all global devices
     run = stream.make_sharded_mcrx_a2a(m, num_channels, sync, blocks)
 
@@ -34,9 +34,9 @@ def init(coordinator_address: str | None = None,
          process_id: int | None = None) -> None:
     """Initialize jax.distributed (idempotent; env-driven when args absent).
 
-    On TPU pods the arguments are discovered from the environment; on CPU
-    fleets pass them explicitly or via ``JAX_COORDINATOR_ADDRESS``/
-    ``JAX_NUM_PROCESSES``/``JAX_PROCESS_ID``.
+    Pass the coordinator explicitly or via ``JAX_COORDINATOR_ADDRESS``/
+    ``JAX_NUM_PROCESSES``/``JAX_PROCESS_ID`` (e.g. ``localhost:<port>`` on
+    one multi-GPU host); nothing is discovered automatically.
     """
     global _initialized
     if _initialized:
@@ -52,25 +52,10 @@ def init(coordinator_address: str | None = None,
         kwargs["process_id"] = int(
             process_id if process_id is not None
             else os.environ["JAX_PROCESS_ID"])
-    ran = False
+    # a single process with no coordinator forms no group: stay unlatched
+    # so a later explicit init() with real coordinator args still works
     if kwargs.get("num_processes", 1) > 1 or "coordinator_address" in kwargs:
         jax.distributed.initialize(**kwargs)
-        ran = True
-    elif not kwargs and jax.default_backend() == "tpu":
-        # TPU pod auto-discovery: initialize() self-discovers the
-        # coordinator from TPU metadata.  Without this call a pod-slice
-        # launch silently runs as independent single-host processes.
-        # (Skipped off-TPU, where argless initialize() would fail on a
-        # plain single host — the common CPU/test environment.)
-        try:
-            jax.distributed.initialize()
-            ran = True
-        except Exception:  # noqa: BLE001 — single-host TPU (e.g. v5e-1)
-            ran = False
-    # only latch when a process group actually formed (or was properly
-    # attempted with full args): otherwise a later explicit init() with
-    # real coordinator args must still work
-    if ran:
         _initialized = True
 
 

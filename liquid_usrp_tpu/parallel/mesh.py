@@ -1,7 +1,7 @@
 """Device mesh construction for the SDR pipelines.
 
 The reference is single-host with pthread workers (SURVEY.md §2.2); the
-TPU-native scaling axes are:
+device-mesh scaling axes are:
 
 * ``time``    — stream time-blocks with overlap-save halo exchange
   (the SP/CP analog of its streaming filter state),
@@ -9,8 +9,9 @@ TPU-native scaling axes are:
   (the TP/EP analog of the serial loop at
   /root/reference/lib/multichannelrx.cc:185-195).
 
-Collectives ride ICI: ``ppermute`` for halos, ``all_to_all`` for the
-channelizer->sync reshard, ``psum``/``all_gather`` for stats aggregation.
+Collectives ride the interconnect (NVLink within a host): ``ppermute`` for
+halos, ``all_to_all`` for the channelizer->sync reshard,
+``psum``/``all_gather`` for stats aggregation.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Sharded stream processing: time-block (SP) and channel (TP) parallelism.
 
-The TPU-native re-expression of the reference's concurrency (SURVEY.md §2.2):
+The device-mesh re-expression of the reference's concurrency (SURVEY.md §2.2):
 
 * **Time-block sharding** — the stream is split into contiguous per-device
   chunks; each device receives the last ``overlap`` samples of its left
@@ -238,8 +238,8 @@ def make_sharded_mcrx_a2a(mesh: jax.sharding.Mesh, num_channels: int,
     ``n_steps > 1`` processes a longer stream as a **software-pipelined
     scan of super-steps** (docs/scaling.md "overlapped a2a"): each scan
     iteration runs super-step ``i``'s channelize + ``all_to_all`` and
-    super-step ``i-1``'s frame sync, which are data-independent — on TPU
-    the latency-hiding scheduler can therefore run the collective behind
+    super-step ``i-1``'s frame sync, which are data-independent — XLA's
+    latency-hiding scheduler can therefore run the collective behind
     the sync compute instead of serializing them.  Filter memory, NCO
     phase and sync overlap are carried across super-steps exactly (the
     wrap-around halos ride two tiny extra ``ppermute``\\ s), so the result

@@ -1,9 +1,9 @@
 """Bit/byte manipulation substrate for GF(2)-linear coding kernels.
 
 Everything in the coding layer (CRC, Hamming, Golay, conv codes) is GF(2)
-arithmetic.  On TPU the profitable formulation is bits-as-small-ints and
-GF(2) matrix products as integer matmuls reduced mod 2 — these land on the
-MXU for large batches instead of the bit-twiddling loops the reference's
+arithmetic.  On an accelerator the profitable formulation is
+bits-as-small-ints and GF(2) matrix products as matmuls reduced mod 2 —
+dense batched work instead of the bit-twiddling loops the reference's
 dependency (liquid-dsp) uses on CPU.
 
 Conventions
@@ -12,7 +12,8 @@ Conventions
 * A "bit array" is uint8 ``[n*8]`` of 0/1 values, MSB-first within each byte
   (matching the on-air ordering used by the framing layer).
 * GF(2) matmul helpers accept int-typed arrays and reduce mod 2; for large
-  operands they promote to float32/int32 so XLA can tile them onto the MXU.
+  operands they promote to float32 so XLA can hand them to its matmul
+  libraries.
 """
 from __future__ import annotations
 
@@ -49,7 +50,13 @@ def gf2_matmul(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 
     ``a``: ``[..., k]`` bits, ``b``: ``[k, n]`` bits.  float32 accumulation
     of 0/1 values is exact for ``k < 2^24`` (far above the largest CRC basis
-    contraction, 65536) and — unlike an integer dot — maps onto the TPU MXU.
+    contraction, 65536), and unlike an integer dot it maps onto the tensor
+    cores.
+
+    Exact at DEFAULT precision, also where a GPU runs the product in TF32:
+    TF32 rounds each operand to a 10-bit mantissa, which holds 0 and 1
+    exactly, and the accumulation stays float32, so every partial sum is an
+    integer below 2^24.
     """
     acc = jnp.matmul(a.astype(jnp.float32), b.astype(jnp.float32),
                      preferred_element_type=jnp.float32)

@@ -3,7 +3,7 @@
 The reference configures every app through ad-hoc per-binary getopt loops
 with inconsistent defaults (SURVEY.md §5: e.g. fec1 differs between
 ofdmflexframe_tx and the ofdmtxrx library default; the ``-n`` flag collides
-between apps).  This module is the single typed source of truth the TPU
+between apps).  This module is the single typed source of truth this
 framework uses instead: dataclasses with validated fields, string parsing
 for scheme names, and per-pipeline defaults recorded next to the reference
 values they mirror.

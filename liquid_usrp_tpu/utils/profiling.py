@@ -1,7 +1,7 @@
 """Tracing / profiling utilities.
 
 The reference's only instrumentation is the tic/toc timer used for run
-duration and throughput math (SURVEY.md §5).  The TPU equivalents:
+duration and throughput math (SURVEY.md §5).  The equivalents here:
 
 * :func:`trace` — context manager around ``jax.profiler`` traces (view with
   TensorBoard / xprof),

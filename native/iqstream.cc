@@ -1,4 +1,4 @@
-// iqstream — native IQ stream I/O engine for the TPU SDR framework.
+// iqstream — native IQ stream I/O engine for the JAX SDR framework.
 //
 // Plays the role UHD's device transport plays in the reference
 // (/root/reference/lib/ofdmtxrx.cc:96-97 send/recv paths): moving complex
@@ -292,7 +292,7 @@ int iq_write_file(const char* path, int format, const float* data,
   return (put == n_samples && close_rc == 0) ? 0 : -1;
 }
 
-// ---- cf32 -> bfloat16 I/Q planes (TPU reduced-precision ingest) ----
+// ---- cf32 -> bfloat16 I/Q planes (reduced-precision device ingest) ----
 //
 // Deinterleaves and rounds in one pass: ``out`` receives 2*n uint16
 // values — first n = I plane, then n = Q plane (the [2, L] layout

@@ -1,7 +1,7 @@
 """Multi-process worker for the distributed TX->RX pipeline test.
 
 One OS process per simulated host (the real topology is one process per
-TPU host; here each process exposes N virtual CPU devices via
+GPU host; here each process exposes N virtual CPU devices via
 ``xla_force_host_platform_device_count``).  Every process builds the same
 deterministic per-channel baseband, contributes its local shards, then
 the FULL pipeline runs on the global ``(time, channel)`` mesh: the

@@ -201,7 +201,7 @@ def test_resamp_set_rate_midstream():
 
 
 def test_root_nyquist_designs_beat_rrc():
-    """rkaiser/hm3 are real ISI-optimized designs (VERDICT weak #8): at the
+    """rkaiser/hm3 are real ISI-optimized designs: at the
     narrowband_tx default design point they dominate the truncated RRC."""
     from liquid_usrp_tpu.ops import filter_design as fd
     k, m, beta = 2, 9, 0.2
@@ -241,39 +241,3 @@ def test_resamp_tone_reconstruction_error():
         err_db = 10 * np.log10(np.mean(np.abs(y - g * ref) ** 2) /
                                np.mean(np.abs(y) ** 2))
         assert err_db < -60.0, (rate, err_db)
-
-
-@pytest.mark.slow
-def test_rational_fast_path_equals_general():
-    """Small-denominator rates route through per-class strided convs
-    (_resamp_block_rational); results must match the windows-gather
-    general path: identical timing integers (valid/count/carried state),
-    float outputs to ~1 ulp, across a block split."""
-    rng = np.random.default_rng(2)
-    resamp._RATIONAL_ON_CPU = True        # the path is TPU-gated
-    for rate in (1.5, 0.75, 2.0, 4 / 3, 1.25, 64 / 63):
-        rs = resamp.resamp_create(rate)
-        assert rs.q <= resamp._RATIONAL_Q_MAX
-        x1 = (rng.normal(size=1200) + 1j * rng.normal(size=1200)
-              ).astype(np.complex64)
-        x2 = (rng.normal(size=700) + 1j * rng.normal(size=700)
-              ).astype(np.complex64)
-        st = resamp.resamp_state(rs)
-        st, ya, va, ca = resamp.resamp_block(rs, st, jnp.asarray(x1))
-        st_f, yb, vb, cb = resamp.resamp_block(rs, st, jnp.asarray(x2))
-        try:
-            resamp._RATIONAL_ON_CPU = False      # force the general path
-            st = resamp.resamp_state(rs)
-            st, Ya, Va, Ca = resamp.resamp_block(rs, st, jnp.asarray(x1))
-            st_g, Yb, Vb, Cb = resamp.resamp_block(rs, st, jnp.asarray(x2))
-        finally:
-            resamp._RATIONAL_ON_CPU = True
-        assert int(ca) == int(Ca) and int(cb) == int(Cb), rate
-        np.testing.assert_array_equal(np.asarray(va), np.asarray(Va))
-        np.testing.assert_allclose(np.asarray(ya), np.asarray(Ya),
-                                   atol=2e-5, err_msg=str(rate))
-        np.testing.assert_allclose(np.asarray(yb), np.asarray(Yb),
-                                   atol=2e-5, err_msg=str(rate))
-        assert int(st_f.i0) == int(st_g.i0)
-        assert int(st_f.num0) == int(st_g.num0)
-    resamp._RATIONAL_ON_CPU = False

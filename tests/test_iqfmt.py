@@ -1,7 +1,7 @@
 """Reduced-precision IQ ingest (ops/iqfmt): fidelity + pipeline decode.
 
-The RX pipeline is HBM-bandwidth-bound (docs/roofline.md), so bench.py
-offers a bfloat16-planes mixture ingest.  These tests pin (a) the
+The RX pipeline does a few FLOPs per input byte, so the receivers accept
+a bfloat16-planes mixture ingest.  These tests pin (a) the
 quantization-SNR floor of the format and (b) that the full multichannel
 pipeline decodes payload-exact from bf16 planes, identically to the
 complex64 path.

@@ -1,35 +1,33 @@
-"""Semantic locks for the round-5 TPU-lowering rewrites.
+"""Semantic locks for the gather-free and O(1)-per-sample lowering forms.
 
-Each of these ops replaced a form that lowered catastrophically on TPU
-(traced index-array gathers under the candidate vmap; O(window)
-reduce_window NMS — ROUND5_NOTES.md).  The rewrites are only legal
+Each of these ops replaces a direct formulation (a traced index-array
+gather under the candidate vmap; an O(window) reduce_window NMS) with a
+form that lowers better on some backend.  The rewrites are only legal
 because they are exactly equivalent to the forms they replaced; these
 tests pin that equivalence against the direct reference formulations.
 """
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from liquid_usrp_tpu.framing import payload as payload_codec
 from liquid_usrp_tpu.ops import modem as modem_mod
-from liquid_usrp_tpu.ops.corr import _sliding_max_vanherk, sliding_max
+from liquid_usrp_tpu.ops.corr import sliding_max
 
 
 @pytest.mark.parametrize("n,radius", [(5, 1), (97, 48), (1000, 3),
                                       (4096, 96), (65633, 48)])
 def test_sliding_max_equals_reduce_window(n, radius):
-    """Both dispatch targets must match reduce_window exactly (the CPU
-    lane's sliding_max IS reduce_window, so the van Herk core — the TPU
-    form — is asserted explicitly)."""
+    """sliding_max (one reduce_window) against a NumPy sliding max over
+    the -inf padded signal."""
     rng = np.random.default_rng(n + radius)
-    x = jnp.asarray(rng.standard_normal(n), jnp.float32)
-    want = jax.lax.reduce_window(x, -jnp.inf, jax.lax.max,
-                                 (2 * radius + 1,), (1,), "SAME")
-    np.testing.assert_array_equal(np.asarray(want),
-                                  np.asarray(sliding_max(x, radius)))
+    x = rng.standard_normal(n).astype(np.float32)
+    pad = np.concatenate([np.full(radius, -np.inf, np.float32), x,
+                          np.full(radius, -np.inf, np.float32)])
+    want = np.lib.stride_tricks.sliding_window_view(
+        pad, 2 * radius + 1).max(-1)
     np.testing.assert_array_equal(
-        np.asarray(want), np.asarray(_sliding_max_vanherk(x, radius)))
+        np.asarray(sliding_max(jnp.asarray(x), radius)), want)
 
 
 @pytest.mark.parametrize("scheme", [1, 2, 9, 17, 24, 40])  # bps 1,2,4,6...

@@ -183,7 +183,7 @@ def test_async_worker_read_past_ahead_bound_and_txrx_drain():
 @pytest.mark.slow
 def test_mcrx_batched_step_equals_scan():
     """make_mcrx_batched_step == scan of make_mcrx_step on a loaded
-    mixture (multi-block dispatch, VERDICT next-8)."""
+    mixture (multi-block dispatch)."""
     import jax
     import jax.numpy as jnp
     from liquid_usrp_tpu.framing import ofdm, ofdm_sync

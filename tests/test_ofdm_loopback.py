@@ -418,8 +418,8 @@ def test_stress_mixed_props_stream(setup):
 @pytest.mark.slow
 def test_batched_blocks_equal_sequential(setup):
     """sync_blocks_batched == scan of sync_block: same detections, same
-    payloads, same stats, on a loaded multi-frame stream (ROUND1 idea 6 /
-    VERDICT next-8: multi-block batched dispatch)."""
+    payloads, same stats, on a loaded multi-frame stream (multi-block
+    batched dispatch)."""
     params, sync, step = setup
     props = ofdm.FrameProps()
     rng = np.random.default_rng(17)

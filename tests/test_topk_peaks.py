@@ -1,4 +1,4 @@
-"""Property tests: ``topk_peaks`` vs ``lax.top_k`` (VERDICT r2 #7).
+"""Property tests: ``topk_peaks`` vs ``lax.top_k``.
 
 ``framing/ofdm_sync.py::topk_peaks`` replaces the full-array top-k with a
 segmented reduce, relying on the NMS invariant (surviving peaks are
@@ -6,15 +6,14 @@ segmented reduce, relying on the NMS invariant (surviving peaks are
 Detection completeness at ``max_frames`` saturation rests on that
 argument; these tests exercise it directly, including the adversarial
 equal-score/plateau inputs where NMS ties let *multiple* survivors share
-a suppression radius, and the M<32 boundary where ``_detect_candidates``
-must route around the fused Pallas kernel.
+a suppression radius.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from liquid_usrp_tpu.framing import ofdm, ofdm_sync
+from liquid_usrp_tpu.framing import ofdm_sync
 
 
 def _sets(vals, locs):
@@ -197,41 +196,3 @@ def test_distinct_values_inside_one_plateau_window():
     got = ofdm_sync.topk_peaks(jnp.asarray(score), 16, min_dist)
     want = _topk_ref(score, 16)
     assert _sets(*got) == _sets(*want)
-
-
-def test_pallas_m_below_32_routes_around_fused_kernel(monkeypatch):
-    """The fused-kernel boundary: for M < 32 the fused kernel's fixed
-    64-sample reduction segments exceed the NMS radius (2M+1), so
-    _detect_candidates must NOT call detect_candidates_onepass — it
-    composes the one-pass metric with the XLA topk_peaks path instead.
-    Candidates must agree with use_pallas=0 exactly in location/flags;
-    the raw correlation may differ by float accumulation order only."""
-    from liquid_usrp_tpu.ops import pallas_kernels
-
-    def _boom(*a, **k):   # the fused path must be unreachable at M<32
-        raise AssertionError("detect_candidates_onepass called for M<32")
-    monkeypatch.setattr(pallas_kernels, "detect_candidates_onepass", _boom)
-
-    params = ofdm.make_ofdm_params(M=16, cp_len=4, taper_len=2)
-    mk = lambda up: ofdm_sync.make_sync(   # noqa: E731
-        params, block_size=4096, max_payload=32, max_frames=4,
-        use_pallas=up)
-    s0, s2 = mk(0), mk(2)
-    rng = np.random.default_rng(11)
-    frame = np.asarray(ofdm.assemble_frame(
-        params, ofdm.default_props(),
-        jnp.asarray(np.arange(8, dtype=np.uint8)),
-        jnp.asarray(rng.integers(0, 256, 20, dtype=np.uint8))))
-    ext = np.zeros(4096 + s0.overlap, np.complex64)
-    ext[700:700 + len(frame)] = frame
-    ext += 0.01 * (rng.standard_normal(len(ext)) +
-                   1j * rng.standard_normal(len(ext))).astype(np.complex64)
-    det0, locs0, c0 = ofdm_sync._detect_candidates(s0, jnp.asarray(ext))
-    det2, locs2, c2 = ofdm_sync._detect_candidates(s2, jnp.asarray(ext))
-    np.testing.assert_array_equal(np.asarray(det0), np.asarray(det2))
-    np.testing.assert_array_equal(np.asarray(locs0), np.asarray(locs2))
-    # use_pallas>=1 still computes the METRIC with the one-pass kernel
-    # (legal at any M): same values up to accumulation order.
-    np.testing.assert_allclose(
-        np.asarray(c0), np.asarray(c2), rtol=1e-5, atol=1e-6)
-    assert int(np.asarray(det0).sum()) >= 1

@@ -1,6 +1,6 @@
 """802.11a wire-compliance goldens from the published standard text.
 
-VERDICT r2 #5: the existing wlan tests pit the vectorized coder against a
+The other wlan tests pit the vectorized coder against a
 serial reference written in the same repo — both ends could share one
 convention misread (round 2's LSB-first conv-generator bug proved the
 risk).  This file pins the TX chain against text the repo did NOT write:
